@@ -13,7 +13,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
-from raytracer795_tpu.utils import exr  # noqa: E402
+from raytracer795.utils import exr  # noqa: E402
 
 here = os.path.dirname(os.path.abspath(__file__))
 

@@ -15,7 +15,7 @@ import conftest
 
 
 def _load(name, **kw):
-    from raytracer795_tpu.scene.loader import load_scene
+    from raytracer795.scene.loader import load_scene
 
     return load_scene(os.path.join(conftest.SCENES, name + ".xml"), **kw)
 
@@ -23,7 +23,7 @@ def _load(name, **kw):
 def _random_rays(n, seed, lo=-2.0, hi=2.0):
     import jax.numpy as jnp
 
-    from raytracer795_tpu.ops import intersect
+    from raytracer795.ops import intersect
 
     rng = np.random.default_rng(seed)
     o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
@@ -32,7 +32,7 @@ def _random_rays(n, seed, lo=-2.0, hi=2.0):
     # a few exact-zero direction components to exercise the slab-test quirk
     d[: n // 8, 0] = 0.0
     d[n // 8: n // 4, 2] = 0.0
-    from raytracer795_tpu.utils.vec3 import Vec3
+    from raytracer795.utils.vec3 import Vec3
 
     return intersect.Rays(o=Vec3.from_array(jnp.asarray(o)),
                           d=Vec3.from_array(jnp.asarray(d)),
@@ -43,7 +43,7 @@ def _random_rays(n, seed, lo=-2.0, hi=2.0):
                                         "instances", "transforms"])
 def test_trace_parity_random_rays(scene_name):
     """BVH and linear traced hits agree on random rays through the scene."""
-    from raytracer795_tpu.ops import intersect
+    from raytracer795.ops import intersect
 
     brute = _load(scene_name, bvh_min_tris=10**9).scene
     accel = _load(scene_name, bvh_min_tris=2).scene
@@ -77,7 +77,7 @@ def test_render_parity(scene_name):
     quartering the execute time (r4 verdict suite-time item)."""
     import dataclasses
 
-    from raytracer795_tpu import render as render_mod
+    from raytracer795 import render as render_mod
 
     brute = _load(scene_name, bvh_min_tris=10**9)
     accel = _load(scene_name, bvh_min_tris=2)
@@ -92,8 +92,8 @@ def test_render_parity(scene_name):
 
 def test_python_fallback_matches_native(monkeypatch):
     """The NumPy builder yields the same hits as the C++ builder."""
-    from raytracer795_tpu import native
-    from raytracer795_tpu.ops import intersect
+    from raytracer795 import native
+    from raytracer795.ops import intersect
 
     with_native = _load("ply_smooth", bvh_min_tris=2).scene
     assert native.load_native("bvh_builder") is not None, \
@@ -113,7 +113,7 @@ def test_python_fallback_matches_native(monkeypatch):
 
 def test_big_mesh_bvh_structure():
     """Builder invariants on a large random soup (native path)."""
-    from raytracer795_tpu.ops import bvh as bvh_mod
+    from raytracer795.ops import bvh as bvh_mod
 
     rng = np.random.default_rng(7)
     n = 50_000

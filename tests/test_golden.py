@@ -14,7 +14,7 @@ from tests.conftest import golden, ldr, load
 
 
 def _render(name, **kw):
-    from raytracer795_tpu.render import render_camera
+    from raytracer795.render import render_camera
 
     return render_camera(load(name), 0, **kw)
 

@@ -20,7 +20,7 @@ from tests.conftest import load
 
 
 def _ray_batch(loaded, nx=24, ny=24):
-    from raytracer795_tpu.models import camera as camera_model
+    from raytracer795.models import camera as camera_model
 
     cam = dataclasses.replace(loaded.cameras[0], nx=nx, ny=ny,
                               num_samples=1, grid=1)
@@ -60,7 +60,7 @@ def _param_setup(scene, render_rays_fn, rays, bg, key, **render_kw):
     differentiable-parameter dict; every per-family test below derives its
     scalar (directional) derivative from this single gradient instead of
     compiling its own backward — the round-4 verdict's suite-time item."""
-    from raytracer795_tpu.parallel import shard as par
+    from raytracer795.parallel import shard as par
 
     params = par.differentiable_params(scene)
 
@@ -80,7 +80,7 @@ class TestPathTracerGrads:
 
     @pytest.fixture(scope="class")
     def setup(self):
-        from raytracer795_tpu.models import path_tracer
+        from raytracer795.models import path_tracer
 
         loaded = load("cornellbox_pt")
         scene = loaded.scene
@@ -131,7 +131,7 @@ class TestWhittedGrads:
 
     @pytest.fixture(scope="class")
     def setup(self):
-        from raytracer795_tpu.models import whitted
+        from raytracer795.models import whitted
 
         loaded = load("cornellbox")
         scene = loaded.scene
@@ -179,7 +179,7 @@ class TestTextureGrads:
     blend, linear in the texel values, so central FD matches analytically."""
 
     def test_per_texel_fd(self):
-        from raytracer795_tpu.models import whitted
+        from raytracer795.models import whitted
 
         loaded = load("textures")
         scene = loaded.scene
@@ -224,14 +224,13 @@ class TestTextureGrads:
         Normal/bump decals are disabled FOR THIS CPU TEST ONLY: their image
         gradient flows through the shading normal into the continuation-ray
         chain, and XLA:CPU's LLVM pipeline pathologically explodes compiling
-        that backward graph (>16 GB, >40 min at 2 whitted iterations). The
-        SAME gradient compiles and runs on TPU in ~95 s (verified on v5e,
-        |g|sum identical to the CPU iters=1 value) — a CPU-backend compiler
-        pathology, not a framework limitation."""
+        that backward graph (>16 GB, >40 min at 2 whitted iterations) — a
+        CPU-backend compiler pathology, not a framework limitation; the GPU
+        runs the bump-texture gradient (tests/test_gpu.py)."""
         import dataclasses as dc
 
-        from raytracer795_tpu.parallel import shard as par
-        from raytracer795_tpu.scene import types as T
+        from raytracer795.parallel import shard as par
+        from raytracer795.scene import types as T
 
         loaded = load("textures")
         scene = loaded.scene

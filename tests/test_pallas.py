@@ -1,10 +1,11 @@
-"""Pallas traversal-kernel parity: the TPU kernel vs the jnp oracle.
+"""Traversal-kernel parity: the GPU kernel vs the jnp reference walk.
 
-The packet-traversal kernel (ops/pallas_bvh.py) is the default trace path on
-TPU; the jnp lockstep while_loop (ops/intersect.py) is the oracle. On the
-CPU test mesh the kernel runs in interpreter mode — same program, exact
-arithmetic — so bit-parity here proves the kernel logic, while the TPU
-golden (test_golden_rock100k) proves the compiled artifact.
+The per-ray traversal kernel (ops/bvh_kernel.py) is the trace path on the
+GPU; the jnp lockstep while_loop (ops/intersect.py) is its reference. On the
+CPU test mesh the kernel runs in the Pallas interpreter — same program,
+exact arithmetic — so bit-parity here proves the kernel logic; the kernel is
+also lowered for CUDA here, which proves the Triton route accepts it. The
+compiled artifact is proven on the card (tests/test_gpu.py).
 """
 
 import os
@@ -13,20 +14,6 @@ import numpy as np
 import pytest
 
 import conftest
-
-
-@pytest.fixture(autouse=True)
-def _cpu_pack_leaf(monkeypatch):
-    """Interpret-mode kernel cost scales with the statically unrolled
-    leaf-row count, so the CPU parity runs pin the multipack leaf back to
-    36 (PACK_LEAF defaults to 72 for on-chip throughput). Parity here
-    proves traversal/ordering semantics at a given leaf size; the shipped
-    leaf-72 tables are proven by the on-chip rock1800k golden
-    (tests/test_tpu.py)."""
-    if not conftest.TPU_TESTS:
-        from raytracer795_tpu.ops import pallas_bvh
-
-        monkeypatch.setattr(pallas_bvh, "PACK_LEAF", 36)
 
 
 def _random_mesh(t, seed):
@@ -39,7 +26,7 @@ def _random_mesh(t, seed):
 def _random_rays(n, seed):
     import jax.numpy as jnp
 
-    from raytracer795_tpu.utils.vec3 import Vec3
+    from raytracer795.utils.vec3 import Vec3
 
     rng = np.random.default_rng(seed)
     o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
@@ -52,42 +39,65 @@ def _random_rays(n, seed):
     return (Vec3.from_array(jnp.asarray(o)), Vec3.from_array(jnp.asarray(d)))
 
 
-@pytest.mark.parametrize("t,n,seed", [(333, 1500, 0), (2048, 4096, 1)])
-def test_kernel_parity_random_mesh(t, n, seed):
+class _Scene:
+    """The two scene fields the traversal reads."""
+
+    def __init__(self, verts, int_eps):
+        import jax.numpy as jnp
+
+        self.vertices = jnp.asarray(verts)
+        self.int_eps = int_eps
+
+
+class _Group:
+    """The group fields the traversal reads."""
+
+    def __init__(self, flat, tv):
+        import jax
+        import jax.numpy as jnp
+
+        self.bvh = jax.tree_util.tree_map(jnp.asarray, flat)
+        self.tri_vidx = jnp.asarray(tv)
+        self.n_tris = int(tv.shape[0])
+
+
+def _bvh_mesh(t, seed):
+    from raytracer795.ops import bvh as bvh_mod
+
+    verts, tri_vidx = _random_mesh(t, seed)
+    flat, perm = bvh_mod.build(*bvh_mod.tri_bounds(verts, tri_vidx))
+    return verts, flat, tri_vidx[perm]
+
+
+def _kernel(scene, group, o, d, cap=None):
+    """Interpreted kernel: nearest (key, t, idx) or any-hit found."""
+    from raytracer795.ops import bvh_kernel
+
+    tris = bvh_kernel.tri_table(scene.vertices, group.tri_vidx)
+    if cap is None:
+        return tuple(map(np.asarray, bvh_kernel.tri_bvh_nearest(
+            group.bvh, tris, o, d, scene.int_eps, interpret=True)))
+    return np.asarray(bvh_kernel.tri_bvh_anyhit(
+        group.bvh, tris, o, d, cap, scene.int_eps, interpret=True))
+
+
+def _oracle(scene, group, o, d, cap=None):
     import jax
     import jax.numpy as jnp
 
-    from raytracer795_tpu.ops import bvh as bvh_mod
-    from raytracer795_tpu.ops import intersect, pallas_bvh
+    from raytracer795.ops import intersect
 
-    verts, tri_vidx = _random_mesh(t, seed)
-    pbmin, pbmax = bvh_mod.tri_bounds(verts, tri_vidx)
-    flat, perm = bvh_mod.build(pbmin, pbmax)
-    tv = tri_vidx[perm]
-    pack = pallas_bvh.build_pack(flat, verts, tv)
-    n_nodes = flat.first.shape[0]
-    o, d = _random_rays(n, seed + 10)
-    int_eps = jnp.float32(1e-3)
+    rays = intersect.Rays(o=o, d=d, time=jnp.zeros(o.x.shape))
+    if cap is None:
+        return tuple(map(np.asarray, jax.jit(
+            lambda r: intersect._tri_bvh_candidates(scene, group, r))(rays)))
+    return np.asarray(jax.jit(
+        lambda r: intersect._tri_bvh_anyhit(scene, group, r, cap))(rays))
 
-    key, tt, idx = pallas_bvh.tri_bvh_nearest(
-        pack, o, d, int_eps, n_nodes, flat.max_leaf, interpret=True)
 
-    class _Scene:
-        vertices = jnp.asarray(verts)
-
-    _Scene.int_eps = int_eps
-
-    class _Group:
-        bvh = jax.tree_util.tree_map(jnp.asarray, flat)
-        n_tris = t
-
-    _Group.tri_vidx = jnp.asarray(tv)
-    rays = intersect.Rays(o=o, d=d, time=jnp.zeros(n))
-    rk, rt, ridx = jax.jit(
-        lambda r: intersect._tri_bvh_candidates(_Scene, _Group, r))(rays)
-
-    key, tt, idx = map(np.asarray, (key, tt, idx))
-    rk, rt, ridx = map(np.asarray, (rk, rt, ridx))
+def _assert_nearest_parity(got, want):
+    key, tt, idx = got
+    rk, rt, ridx = want
     hit_p, hit_r = key < 1e38, rk < 1e38
     np.testing.assert_array_equal(hit_p, hit_r)
     both = hit_p & hit_r
@@ -95,277 +105,194 @@ def test_kernel_parity_random_mesh(t, n, seed):
     # t compare: the oracle's XLA fusion reassociates a couple ulp under
     # --xla_backend_optimization_level=0 (conftest); masks/ids stay exact
     np.testing.assert_allclose(tt[both], rt[both], rtol=2e-5, atol=2e-5)
+    return hit_p
+
+
+@pytest.mark.parametrize("t,n,seed", [(333, 1500, 0), (2048, 4096, 1)])
+def test_kernel_parity_random_mesh(t, n, seed):
+    import jax.numpy as jnp
+
+    verts, flat, tv = _bvh_mesh(t, seed)
+    scene, group = _Scene(verts, jnp.float32(1e-3)), _Group(flat, tv)
+    o, d = _random_rays(n, seed + 10)
+
+    hit = _assert_nearest_parity(_kernel(scene, group, o, d),
+                                 _oracle(scene, group, o, d))
+    assert hit.any()
 
     # anyhit parity, including the per-lane t_cap
     cap = jnp.asarray(
         np.random.default_rng(seed + 20).uniform(0.1, 5.0, n), jnp.float32)
-    f_p = np.asarray(pallas_bvh.tri_bvh_anyhit(
-        pack, o, d, cap, int_eps, n_nodes, flat.max_leaf, interpret=True))
-    f_r = np.asarray(jax.jit(
-        lambda r: intersect._tri_bvh_anyhit(_Scene, _Group, r, cap))(rays))
-    np.testing.assert_array_equal(f_p, f_r)
+    np.testing.assert_array_equal(_kernel(scene, group, o, d, cap),
+                                  _oracle(scene, group, o, d, cap))
 
 
 def test_pack_prim_ids_cover_all_triangles():
-    """Every triangle appears exactly once across the packed leaf rows."""
-    from raytracer795_tpu.ops import bvh as bvh_mod
-    from raytracer795_tpu.ops import pallas_bvh
+    """The kernel tables cover the mesh: leaf ranges partition the
+    triangles exactly once, node records carry the FlatBVH fields, and
+    triangle records are (a, a-b, a-c, (a-b)x(a-c)) of the live vertices."""
+    from raytracer795.ops import bvh_kernel
 
-    verts, tri_vidx = _random_mesh(777, 3)
-    pbmin, pbmax = bvh_mod.tri_bounds(verts, tri_vidx)
-    flat, perm = bvh_mod.build(pbmin, pbmax)
-    pack = pallas_bvh.build_pack(flat, verts, tri_vidx[perm])
-    rows = np.asarray(pack.tri_rows)
-    seen = []
-    for j in range(pallas_bvh.TRIS_PER_ROW):
-        base = j * pallas_bvh.COMPS
-        ng = rows[:, base + 9: base + 12]
-        live = (ng != 0).any(axis=1)
-        seen.append(rows[live, base + 12].astype(np.int64))
-    seen = np.sort(np.concatenate(seen))
-    assert seen.tolist() == list(range(777))
+    verts, flat, tv = _bvh_mesh(777, 3)
+    nodes_f, nodes_i = map(np.asarray, bvh_kernel.node_tables(flat))
+    assert nodes_f.shape == (flat.first.shape[0], 8)
+    np.testing.assert_array_equal(nodes_f[:, 0:3], flat.bmin)
+    np.testing.assert_array_equal(nodes_f[:, 3:6], flat.bmax)
+    np.testing.assert_array_equal(nodes_i[:, 0], flat.first)
+    np.testing.assert_array_equal(nodes_i[:, 1], flat.count)
+    np.testing.assert_array_equal(nodes_i[:, 2], flat.miss)
+    leaves = nodes_i[:, 1] > 0
+    seen = np.concatenate([np.arange(f, f + c) for f, c
+                           in nodes_i[leaves, :2]])
+    assert np.sort(seen).tolist() == list(range(777))
+    assert nodes_i[:, 1].max() <= flat.max_leaf
+
+    tris = np.asarray(bvh_kernel.tri_table(verts, tv))
+    a, b, c = verts[tv[:, 0]], verts[tv[:, 1]], verts[tv[:, 2]]
+    np.testing.assert_array_equal(tris[:, 0:3], a)
+    np.testing.assert_array_equal(tris[:, 3:6], a - b)
+    np.testing.assert_array_equal(tris[:, 6:9], a - c)
+    np.testing.assert_allclose(tris[:, 9:12], np.cross(a - b, a - c),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("t,n,seed", [(600, 1024, 2)])
-def test_multipack_parity_random_mesh(t, n, seed):
-    """Multi-pack streaming traversal (interp kernel + jnp per-pack
-    fallback) bit-matches the single-tree oracle on a random mesh."""
-    import jax
+def test_multipack_parity_random_mesh(t, n, seed, tmp_path):
+    """A group above the former 120k-triangle split point loads as ONE
+    flat BVH (no partition into packs), and the kernel walks it with
+    oracle parity."""
+    import sys
+
     import jax.numpy as jnp
 
-    from raytracer795_tpu.ops import bvh as bvh_mod
-    from raytracer795_tpu.ops import intersect, pallas_bvh
+    from raytracer795.render import scene_stats
+    from raytracer795.scene.loader import load_scene
+    from raytracer795.utils.vec3 import Vec3
 
-    verts, tri_vidx = _random_mesh(t, seed)
-    mp, perm, pack_bvhs = pallas_bvh.build_multipack(
-        verts, tri_vidx, bvh_mod.build, pack_tris=128)
-    assert mp.node_rows.shape[0] >= 4
-    tv = tri_vidx[perm]
-    o, d = _random_rays(n, seed + 10)
-    int_eps = jnp.float32(1e-3)
+    sys.path.insert(0, conftest.SCENES)
+    import make_assets
 
-    # oracle: single tree over the SAME (multipack-permuted) order
-    pbmin, pbmax = bvh_mod.tri_bounds(verts, tv)
-    flat1, perm1 = bvh_mod.build(pbmin, pbmax)
-    tv1 = tv[perm1]
+    nu, nv = 404, 151                       # 2 * nu * (nv - 1) triangles
+    make_assets.make_rock_ply(str(tmp_path / "big.ply"), nu=nu, nv=nv)
+    xml = tmp_path / "big.xml"
+    xml.write_text(
+        "<Scene><Cameras><Camera id=\"1\"><Position>0 0 3</Position>"
+        "<Gaze>0 0 -1</Gaze><Up>0 1 0</Up><NearPlane>-1 1 -1 1</NearPlane>"
+        "<NearDistance>1</NearDistance><ImageResolution>8 8"
+        "</ImageResolution><ImageName>big.png</ImageName></Camera>"
+        "</Cameras><Materials><Material id=\"1\"/></Materials><Objects>"
+        "<Mesh id=\"1\"><Material>1</Material><Faces plyFile=\"big.ply\"/>"
+        "</Mesh></Objects></Scene>")
+    loaded = load_scene(str(xml))
+    (group,) = loaded.scene.groups
+    assert group.n_tris == 2 * nu * (nv - 1) > 120_000
+    assert group.bvh is not None
+    assert not hasattr(group, "bvh_pack") and not hasattr(group, "pack_bvhs")
+    counts = np.asarray(group.bvh.count)
+    assert counts.sum() == group.n_tris
+    assert scene_stats(loaded.scene)["bvh_nodes"] == counts.shape[0]
 
-    class _Scene:
-        vertices = jnp.asarray(verts)
-
-    _Scene.int_eps = int_eps
-
-    class _G1:
-        bvh = jax.tree_util.tree_map(jnp.asarray, flat1)
-        n_tris = t
-
-    _G1.tri_vidx = jnp.asarray(tv1)
-    rays = intersect.Rays(o=o, d=d, time=jnp.zeros(n))
-    rk, rt, ridx = jax.jit(
-        lambda r: intersect._tri_bvh_candidates(_Scene, _G1, r))(rays)
-
-    key, tt, idx = pallas_bvh.tri_bvh_nearest_multi(
-        mp, o, d, int_eps, interpret=True)
-
-    key, tt, idx = map(np.asarray, (key, tt, idx))
-    rk, rt, ridx = map(np.asarray, (rk, rt, ridx))
-    hit_p, hit_r = key < 1e38, rk < 1e38
-    np.testing.assert_array_equal(hit_p, hit_r)
-    both = hit_p & hit_r
-    # winner may differ only where |t| ties across packs; compare geometry
-    # (tolerance: oracle fusion reassociates ~ulp at opt level 0)
-    np.testing.assert_allclose(tt[both], rt[both], rtol=2e-5, atol=2e-5)
-    # oracle index i names tv1[i] == tv[perm1[i]]: map to multipack order
-    np.testing.assert_array_equal(idx[both], perm1[ridx[both]])
-
-    # jnp per-pack fallback path
-    class _Gm:
-        bvh = None
-        n_tris = t
-
-    _Gm.tri_vidx = jnp.asarray(tv)
-    fk = jnp.full((n,), 3.0e38)
-    ft = jnp.zeros((n,))
-    fidx = jnp.zeros((n,), jnp.int32)
-    for fb in pack_bvhs:
-        k2, t2, i2 = jax.jit(lambda r, f=fb: intersect._tri_bvh_candidates(
-            _Scene, _Gm, r, flat=f))(rays)
-        upd = k2 < fk
-        ft = jnp.where(upd, t2, ft)
-        fidx = jnp.where(upd, i2, fidx)
-        fk = jnp.minimum(fk, k2)
-    np.testing.assert_array_equal(np.asarray(fk) < 1e38, hit_p)
-    np.testing.assert_array_equal(np.asarray(fidx)[both], idx[both])
-
-    # anyhit parity across all three paths
-    cap = jnp.asarray(
-        np.random.default_rng(seed + 20).uniform(0.1, 5.0, n), jnp.float32)
-    f_multi = np.asarray(pallas_bvh.tri_bvh_anyhit_multi(
-        mp, o, d, cap, int_eps, interpret=True))
-    f_oracle = np.asarray(jax.jit(
-        lambda r: intersect._tri_bvh_anyhit(_Scene, _G1, r, cap))(rays))
-    np.testing.assert_array_equal(f_multi, f_oracle)
+    # n rays from in front of the rock, aimed at it
+    rng = np.random.default_rng(seed + t)
+    o = rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+    o[:, 2] = 3.0
+    d = rng.normal(size=(n, 3)).astype(np.float32) * 0.2
+    d[:, 2] = -1.0
+    o, d = Vec3.from_array(jnp.asarray(o)), Vec3.from_array(jnp.asarray(d))
+    scene = _Scene(loaded.scene.vertices, loaded.scene.int_eps)
+    hit = _assert_nearest_parity(_kernel(scene, group, o, d),
+                                 _oracle(scene, group, o, d))
+    assert hit.mean() > 0.5
 
 
 def test_kernel_parity_perturbed_vertices():
-    """Vertex-optimization closure (r4 verdict item 4): move the vertices
-    AFTER the pack is built, rebuild the kernel triangle tables in-graph
-    via fresh_tri_rows (exactly what _fresh_pack does inside trace), and
-    assert the kernel still bit-matches the jnp oracle evaluated on the
-    SAME live vertices. Both paths keep the stale load-time BVH boxes, so
-    parity must hold for any step size."""
-    import dataclasses
-
-    import jax
+    """Vertex-optimization closure: move the vertices AFTER the BVH is
+    built, rebuild the kernel triangle table in-graph from the live
+    vertices (what intersect does inside trace), and assert the kernel
+    still bit-matches the jnp oracle evaluated on the SAME live vertices.
+    Both paths keep the stale load-time BVH boxes, so parity must hold for
+    any step size."""
     import jax.numpy as jnp
 
-    from raytracer795_tpu.ops import bvh as bvh_mod
-    from raytracer795_tpu.ops import intersect, pallas_bvh
-
     t, n, seed = 333, 1024, 5
-    verts, tri_vidx = _random_mesh(t, seed)
-    pbmin, pbmax = bvh_mod.tri_bounds(verts, tri_vidx)
-    flat, perm = bvh_mod.build(pbmin, pbmax)
-    tv = tri_vidx[perm]
-    pack = pallas_bvh.build_pack(flat, verts, tv)
-    n_nodes = flat.first.shape[0]
+    verts, flat, tv = _bvh_mesh(t, seed)
     o, d = _random_rays(n, seed + 10)
     int_eps = jnp.float32(1e-3)
 
     # an optimizer step: every vertex moves
     rng = np.random.default_rng(seed + 1)
-    verts2 = jnp.asarray(verts + rng.normal(
-        scale=0.05, size=verts.shape).astype(np.float32))
+    verts2 = verts + rng.normal(scale=0.05, size=verts.shape).astype(
+        np.float32)
 
-    fresh = pack._replace(tri_rows=pallas_bvh.fresh_tri_rows(
-        pack.slot_prim, verts2, jnp.asarray(tv)))
-    key, tt, idx = pallas_bvh.tri_bvh_nearest(
-        fresh, o, d, int_eps, n_nodes, flat.max_leaf, interpret=True)
-
-    class _Scene:
-        vertices = verts2
-
-    _Scene.int_eps = int_eps
-
-    class _Group:
-        bvh = jax.tree_util.tree_map(jnp.asarray, flat)
-        n_tris = t
-
-    _Group.tri_vidx = jnp.asarray(tv)
-    rays = intersect.Rays(o=o, d=d, time=jnp.zeros(n))
-    rk, rt, ridx = jax.jit(
-        lambda r: intersect._tri_bvh_candidates(_Scene, _Group, r))(rays)
-
-    key, tt, idx = map(np.asarray, (key, tt, idx))
-    rk, rt, ridx = map(np.asarray, (rk, rt, ridx))
-    hit_p, hit_r = key < 1e38, rk < 1e38
-    np.testing.assert_array_equal(hit_p, hit_r)
-    both = hit_p & hit_r
-    np.testing.assert_array_equal(idx[both], ridx[both])
-    np.testing.assert_allclose(tt[both], rt[both], rtol=2e-5, atol=2e-5)
-    assert hit_p.any()
-    # sanity: the move really changed the answer vs the baked tables
-    k0, _, _ = pallas_bvh.tri_bvh_nearest(
-        pack, o, d, int_eps, n_nodes, flat.max_leaf, interpret=True)
-    assert not np.array_equal(np.asarray(k0), key)
-
-    # multipack variant of the same closure (dataclasses.replace path)
-    mp, mperm, _ = pallas_bvh.build_multipack(
-        verts, tri_vidx, bvh_mod.build, pack_tris=128)
-    tvm = jnp.asarray(tri_vidx[mperm])
-    mp2 = dataclasses.replace(mp, tri_rows=pallas_bvh.fresh_tri_rows(
-        mp.slot_prim, verts2, tvm))
-    mk, mt, midx = map(np.asarray, pallas_bvh.tri_bvh_nearest_multi(
-        mp2, o, d, int_eps, interpret=True))
-
-    class _Gm:
-        bvh = None
-        n_tris = t
-
-    _Gm.tri_vidx = tvm
-    # oracle: single tree over the multipack order with LIVE verts
-    pb2min, pb2max = bvh_mod.tri_bounds(verts, tri_vidx[mperm])
-    flat2, perm2 = bvh_mod.build(pb2min, pb2max)
-
-    class _G2:
-        bvh = jax.tree_util.tree_map(jnp.asarray, flat2)
-        n_tris = t
-
-    _G2.tri_vidx = tvm[jnp.asarray(perm2)]
-    ok2, ot2, oidx2 = jax.jit(
-        lambda r: intersect._tri_bvh_candidates(_Scene, _G2, r))(rays)
-    hit_m, hit_o = mk < 1e38, np.asarray(ok2) < 1e38
-    np.testing.assert_array_equal(hit_m, hit_o)
-    both = hit_m & hit_o
-    np.testing.assert_allclose(mt[both], np.asarray(ot2)[both],
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_array_equal(midx[both],
-                                  np.asarray(perm2)[np.asarray(oidx2)[both]])
+    group = _Group(flat, tv)
+    moved = _Scene(verts2, int_eps)
+    got = _kernel(moved, group, o, d)
+    hit = _assert_nearest_parity(got, _oracle(moved, group, o, d))
+    assert hit.any()
+    # sanity: the move really changed the answer vs the load-time vertices
+    k0, _, _ = _kernel(_Scene(verts, int_eps), group, o, d)
+    assert not np.array_equal(k0, got[0])
 
 
 def test_batched_instance_dispatch_bitwise():
-    """Groups sharing a kernel pack (instances of one base mesh) are
-    batched into ONE traversal launch (ops/intersect.py pack clusters);
-    results must be bit-identical to the per-group launch loop."""
-    import os
-
+    """Groups sharing one BVH (instances of one base mesh) are batched
+    into ONE traversal walk (ops/intersect.py BVH clusters), on the kernel
+    and on the jnp path; results must be bit-identical to the per-group
+    loop."""
     import jax
     import jax.numpy as jnp
 
-    from raytracer795_tpu.models import camera as camera_model
-    from raytracer795_tpu.ops import intersect
-    from raytracer795_tpu.scene.loader import load_scene
+    from raytracer795.models import camera as camera_model
+    from raytracer795.ops import intersect
+    from raytracer795.scene.loader import load_scene
 
-    # bvh_min_tris=1 packs even the 6-triangle base mesh, so the two
-    # MeshInstances + base form a 3-group shared-pack cluster
+    # bvh_min_tris=1 gives even the 6-triangle base mesh a BVH, so the two
+    # MeshInstances + base form a 3-group shared-BVH cluster
     loaded = load_scene(os.path.join(conftest.SCENES, "instances.xml"),
                         bvh_min_tris=1)
     scene = loaded.scene
-    assert len(intersect._pack_clusters(scene)) >= 1
+    assert len(intersect._bvh_clusters(scene)) >= 1
     import dataclasses as dc
 
     cam = dc.replace(loaded.cameras[0], nx=32, ny=32, num_samples=1, grid=1)
     rays = camera_model.primary_rays(cam)
 
-    os.environ["RT795_PALLAS"] = "interp"
-    try:
-        os.environ["RT795_BATCH_INSTANCES"] = "0"
-        h_u = jax.jit(intersect.trace)(scene, rays)
-        f_u = jax.jit(intersect.trace_anyhit)(
-            scene, rays, jnp.full(rays.o.shape[:1], 4.0))
-        os.environ["RT795_BATCH_INSTANCES"] = "1"
-        h_b = jax.jit(lambda s, r: intersect.trace(s, r))(scene, rays)
-        f_b = jax.jit(lambda s, r: intersect.trace_anyhit(
+    def run():
+        # fresh closures: the traversal choice is read at trace time
+        hit = jax.jit(lambda s, r: intersect.trace(s, r))(scene, rays)
+        found = jax.jit(lambda s, r: intersect.trace_anyhit(
             s, r, jnp.full(r.o.shape[:1], 4.0)))(scene, rays)
-    finally:
-        os.environ.pop("RT795_PALLAS", None)
-        os.environ.pop("RT795_BATCH_INSTANCES", None)
+        return hit, found
 
-    assert bool(np.asarray(h_b.valid).any())
-    for a, b in zip(h_u, h_b):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    np.testing.assert_array_equal(np.asarray(f_u), np.asarray(f_b))
+    for mode in ("interp", "0"):
+        os.environ["RT795_PALLAS"] = mode
+        try:
+            os.environ["RT795_BATCH_INSTANCES"] = "0"
+            h_u, f_u = run()
+            os.environ["RT795_BATCH_INSTANCES"] = "1"
+            h_b, f_b = run()
+        finally:
+            os.environ.pop("RT795_PALLAS", None)
+            os.environ.pop("RT795_BATCH_INSTANCES", None)
+
+        assert bool(np.asarray(h_b.valid).any())
+        for a, b in zip(h_u, h_b):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        np.testing.assert_array_equal(np.asarray(f_u), np.asarray(f_b))
 
 
 def test_kernel_parity_axis_aligned_vertex_origins():
-    """The (formerly documented, now fixed) d == 0 NaN-entry corner: rays
-    with a zero direction component whose origin coordinates sit EXACTLY
-    on vertex/bbox-bound coordinates. The per-lane ancestor mask must keep
-    the kernel bit-equal to the per-lane oracle walk here."""
-    import jax
+    """The d == 0 NaN-entry corner: rays with a zero direction component
+    whose origin coordinates sit EXACTLY on vertex/bbox-bound coordinates.
+    Each lane walks its own path, so the kernel must stay bit-equal to the
+    per-lane oracle walk here."""
     import jax.numpy as jnp
 
-    from raytracer795_tpu.ops import bvh as bvh_mod
-    from raytracer795_tpu.ops import intersect, pallas_bvh
-    from raytracer795_tpu.utils.vec3 import Vec3
+    from raytracer795.utils.vec3 import Vec3
 
     t, seed = 222, 7
-    verts, tri_vidx = _random_mesh(t, seed)
-    pbmin, pbmax = bvh_mod.tri_bounds(verts, tri_vidx)
-    flat, perm = bvh_mod.build(pbmin, pbmax)
-    tv = tri_vidx[perm]
-    pack = pallas_bvh.build_pack(flat, verts, tv)
-    n_nodes = flat.first.shape[0]
-    int_eps = jnp.float32(1e-3)
+    verts, flat, tv = _bvh_mesh(t, seed)
+    scene, group = _Scene(verts, jnp.float32(1e-3)), _Group(flat, tv)
 
     # axis-aligned rays: origin coordinates copied EXACTLY from node-box
     # bounds and vertex coordinates; one direction component zeroed
@@ -383,61 +310,76 @@ def test_kernel_parity_axis_aligned_vertex_origins():
     diag = rng.random(n) < 0.33
     other = (main_ax + 1) % 3
     d[diag, other[diag]] = rng.choice([-1.0, 1.0], diag.sum())
-    d[np.arange(n), zero_ax] = np.where(zero_ax == main_ax,
-                                        d[np.arange(n), main_ax], 0.0)
     d[np.arange(n), zero_ax] = 0.0
 
     o_v = Vec3.from_array(jnp.asarray(o))
     d_v = Vec3.from_array(jnp.asarray(d))
-    key, tt, idx = pallas_bvh.tri_bvh_nearest(
-        pack, o_v, d_v, int_eps, n_nodes, flat.max_leaf, interpret=True)
-
-    class _Scene:
-        vertices = jnp.asarray(verts)
-
-    _Scene.int_eps = int_eps
-
-    class _Group:
-        bvh = jax.tree_util.tree_map(jnp.asarray, flat)
-        n_tris = t
-
-    _Group.tri_vidx = jnp.asarray(tv)
-    rays = intersect.Rays(o=o_v, d=d_v, time=jnp.zeros(n))
-    rk, rt, ridx = jax.jit(
-        lambda r: intersect._tri_bvh_candidates(_Scene, _Group, r))(rays)
-
-    key, tt, idx = map(np.asarray, (key, tt, idx))
-    rk, rt, ridx = map(np.asarray, (rk, rt, ridx))
-    hit_p, hit_r = key < 1e38, rk < 1e38
-    np.testing.assert_array_equal(hit_p, hit_r)
-    both = hit_p & hit_r
-    np.testing.assert_array_equal(idx[both], ridx[both])
-    np.testing.assert_allclose(tt[both], rt[both], rtol=2e-5, atol=2e-5)
-
-    f_p = np.asarray(pallas_bvh.tri_bvh_anyhit(
-        pack, o_v, d_v, jnp.full((n,), 3.0), int_eps, n_nodes,
-        flat.max_leaf, interpret=True))
-    f_r = np.asarray(jax.jit(
-        lambda r: intersect._tri_bvh_anyhit(
-            _Scene, _Group, r, jnp.full((n,), 3.0)))(rays))
-    np.testing.assert_array_equal(f_p, f_r)
+    _assert_nearest_parity(_kernel(scene, group, o_v, d_v),
+                           _oracle(scene, group, o_v, d_v))
+    cap = jnp.full((n,), 3.0)
+    np.testing.assert_array_equal(_kernel(scene, group, o_v, d_v, cap),
+                                  _oracle(scene, group, o_v, d_v, cap))
 
 
-@pytest.mark.tpu
-@pytest.mark.skipif(
-    os.environ.get("RT795_SLOW") != "1"
-    and __import__("jax").default_backend() == "cpu",
-    reason="rock100k golden via the jnp fallback takes ~4 min on CPU; "
-           "runs on TPU (RT795_TPU_TESTS=1 pytest -m tpu) or RT795_SLOW=1")
-def test_golden_rock100k():
-    """Dragon-scale golden: 101k-triangle smooth mesh + mirror floor vs the
-    compiled reference renderer (pages/Page2.md:57 analogue)."""
-    from raytracer795_tpu import render as render_mod
-    from raytracer795_tpu.scene.loader import load_scene
+@pytest.mark.parametrize("n", [1, 31, 33, 100])
+def test_kernel_lane_padding(n):
+    """Lane counts off the program width pad with dead NaN rays and slice
+    back: output shapes are [n] and every lane matches the oracle."""
+    import jax.numpy as jnp
 
-    loaded = load_scene(os.path.join(conftest.SCENES, "rock100k.xml"))
-    assert loaded.scene.groups[0].bvh is not None
-    img = conftest.ldr(render_mod.render_camera(loaded, 0, seed=0))
-    gold = conftest.golden("rock100k")
-    frac = (np.abs(img - gold) > 1).mean()
-    assert frac < 1e-4, f"{frac:.6f} of LDR pixels differ"
+    verts, flat, tv = _bvh_mesh(64, 11)
+    scene, group = _Scene(verts, jnp.float32(1e-3)), _Group(flat, tv)
+    o, d = _random_rays(max(n, 16), 12)
+    o = type(o)(*(c[:n] for c in o))
+    d = type(d)(*(c[:n] for c in d))
+    got = _kernel(scene, group, o, d)
+    assert [x.shape for x in got] == [(n,)] * 3
+    _assert_nearest_parity(got, _oracle(scene, group, o, d))
+    found = _kernel(scene, group, o, d, jnp.full((n,), 2.0))
+    assert found.shape == (n,) and found.dtype == bool
+
+
+@pytest.mark.parametrize("flag,backend,want", [
+    ("1", "gpu", "on"), ("1", "cpu", "off"), ("0", "gpu", "off"),
+    ("interp", "cpu", "interp"), ("interp", "gpu", RuntimeError),
+    ("1", "rocm", RuntimeError),
+])
+def test_traversal_mode_choice(flag, backend, want, monkeypatch):
+    """The kernel runs on the GPU, the jnp walk on the CPU, the
+    interpreter only where a CPU test asks; nothing gives way silently."""
+    import jax
+
+    from raytracer795.ops import intersect
+
+    monkeypatch.setenv("RT795_PALLAS", flag)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError):
+            intersect._traversal_mode()
+    else:
+        assert intersect._traversal_mode() == want
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_kernel_lowers_for_cuda(anyhit):
+    """The kernel cross-lowers through the Triton route with no card
+    present: every primitive it uses has a Triton lowering."""
+    import jax
+    import jax.numpy as jnp
+
+    from raytracer795.ops import bvh_kernel
+
+    verts, flat, tv = _bvh_mesh(96, 4)
+    o, d = _random_rays(256, 5)
+    tris = bvh_kernel.tri_table(verts, tv)
+
+    def f(o, d, tris):
+        if anyhit:
+            return bvh_kernel.tri_bvh_anyhit(flat, tris, o, d, 2.0,
+                                             jnp.float32(1e-3))
+        return bvh_kernel.tri_bvh_nearest(flat, tris, o, d,
+                                          jnp.float32(1e-3))
+
+    text = jax.jit(f).trace(o, d, tris).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 1

@@ -19,7 +19,7 @@ from tests.conftest import load
 
 
 def _ray_batch(loaded, nx=16, ny=16):
-    from raytracer795_tpu.models import camera as camera_model
+    from raytracer795.models import camera as camera_model
 
     cam = dataclasses.replace(loaded.cameras[0], nx=nx, ny=ny,
                               num_samples=1, grid=1)
@@ -43,7 +43,7 @@ def test_mesh_has_8_devices():
 def test_forward_parity_1_vs_8_devices(setup):
     """The SPMD render must be bit-identical on 1-device and 8-device meshes
     (deterministic scene: the per-chip RNG decorrelation never draws)."""
-    from raytracer795_tpu.parallel import shard as par
+    from raytracer795.parallel import shard as par
 
     scene, rays, bg, key = setup
     img1 = par.render_rays_sharded(scene, rays, bg, key, par.make_ray_mesh(1))
@@ -59,8 +59,8 @@ def test_sharded_grads_match_unsharded(setup):
     default lane still covers sharded gradients via
     test_train_step_decreases_loss_and_stays_finite (finite psum'd grads +
     loss descent on the same program)."""
-    from raytracer795_tpu.models import whitted
-    from raytracer795_tpu.parallel import shard as par
+    from raytracer795.models import whitted
+    from raytracer795.parallel import shard as par
 
     scene, rays, bg, key = setup
     target = jnp.full((rays.o.shape[0], 3), 0.25, jnp.float32)
@@ -99,7 +99,7 @@ def test_sharded_grads_match_unsharded(setup):
 def test_train_step_decreases_loss_and_stays_finite(setup):
     """Toy inverse rendering: brighten-the-walls target; SGD must descend and
     never write NaN into the parameters (the round-1 regression)."""
-    from raytracer795_tpu.parallel import shard as par
+    from raytracer795.parallel import shard as par
 
     scene, rays, bg, key = setup
     mesh = par.make_ray_mesh(8)

@@ -18,14 +18,14 @@ from tests.conftest import SCENES, load
 
 
 def _render(name, spp, seed=0):
-    from raytracer795_tpu.render import render_camera
+    from raytracer795.render import render_camera
 
     return render_camera(load(name), 0, spp=spp, seed=seed)
 
 
 def _render_variant(tmp_path, name, spp, params=None, depth=None, seed=0):
-    from raytracer795_tpu.render import render_camera
-    from raytracer795_tpu.scene.loader import load_scene
+    from raytracer795.render import render_camera
+    from raytracer795.scene.loader import load_scene
 
     src = open(f"{SCENES}/{name}.xml").read()
     if params is not None:

@@ -2,7 +2,7 @@
 
 SURVEY §5: the reference writes the film only at the end of the render
 (src/Scene.cpp:361) and its attempted global tonemapper shipped buggy
-(pages/Page5.md:101); these are the TPU framework's replacements.
+(pages/Page5.md:101); these are this framework's replacements.
 """
 
 import numpy as np
@@ -14,7 +14,7 @@ from tests.conftest import load
 class TestCheckpointResume:
     def _render(self, loaded, tmp_path, abort_after=None, resume=False,
                 spp=8):
-        from raytracer795_tpu import render as render_mod
+        from raytracer795 import render as render_mod
 
         ckpt = render_mod.FilmCheckpoint(str(tmp_path / "film.ckpt.npz"),
                                          every_s=0.0)
@@ -25,7 +25,7 @@ class TestCheckpointResume:
     def test_kill_resume_bit_equal(self, tmp_path, monkeypatch):
         """Kill the renderer mid-render (after 3 chunk saves), resume, and
         the final image is bit-equal to an uninterrupted render."""
-        from raytracer795_tpu import render as render_mod
+        from raytracer795 import render as render_mod
 
         loaded = load("cornellbox")
         # shrink the lane budget so a 32x32 x 8spp frame needs 2 row bands
@@ -49,7 +49,7 @@ class TestCheckpointResume:
     def test_mismatched_checkpoint_ignored(self, tmp_path, monkeypatch):
         """A checkpoint from a different (seed/spp/camera) render is not
         resumed from."""
-        from raytracer795_tpu import render as render_mod
+        from raytracer795 import render as render_mod
         import dataclasses
 
         loaded = load("cornellbox")
@@ -67,7 +67,7 @@ class TestCheckpointResume:
 
 class TestTonemap:
     def test_reinhard_properties(self):
-        from raytracer795_tpu.utils.tonemap import reinhard_global
+        from raytracer795.utils.tonemap import reinhard_global
 
         rng = np.random.default_rng(0)
         hdr = rng.lognormal(2.0, 2.0, (32, 32, 3)).astype(np.float32)
@@ -89,8 +89,8 @@ class TestTonemap:
         """<Tonemap> under Camera parses and applies to the LDR output."""
         import re
 
-        from raytracer795_tpu import render as render_mod
-        from raytracer795_tpu.scene.loader import load_scene
+        from raytracer795 import render as render_mod
+        from raytracer795.scene.loader import load_scene
         from tests.conftest import SCENES
 
         import shutil
@@ -122,8 +122,8 @@ class TestLdrDevicePath:
     def test_ldr_equals_float_1spp_banded(self, monkeypatch):
         import dataclasses
 
-        from raytracer795_tpu import render as render_mod
-        from raytracer795_tpu.utils.image_io import to_ldr
+        from raytracer795 import render as render_mod
+        from raytracer795.utils.image_io import to_ldr
 
         loaded = load("cornellbox")
         loaded.cameras[0] = dataclasses.replace(
@@ -138,8 +138,8 @@ class TestLdrDevicePath:
     def test_ldr_equals_float_multisample(self, monkeypatch):
         import dataclasses
 
-        from raytracer795_tpu import render as render_mod
-        from raytracer795_tpu.utils.image_io import to_ldr
+        from raytracer795 import render as render_mod
+        from raytracer795.utils.image_io import to_ldr
 
         loaded = load("cornellbox")
         loaded.cameras[0] = dataclasses.replace(

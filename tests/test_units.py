@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer795_tpu.ops import perlin as perlin_ops
-from raytracer795_tpu.scene import types as T
-from raytracer795_tpu.utils import exr
-from raytracer795_tpu.utils.vec3 import (Vec3, vnormalize, vorthonormal_u,
-                                         vreflect, vscrub_nan)
+from raytracer795.ops import perlin as perlin_ops
+from raytracer795.scene import types as T
+from raytracer795.utils import exr
+from raytracer795.utils.vec3 import (Vec3, vnormalize, vorthonormal_u,
+                                     vreflect, vscrub_nan)
 
 
 class TestVec3:
@@ -52,7 +52,7 @@ class TestPerlin:
     ]
 
     def test_values_match_reference(self):
-        from raytracer795_tpu.utils.vec3 import Vec3
+        from raytracer795.utils.vec3 import Vec3
 
         for pt, (lin1, abs3, none2) in self.CASES:
             p = Vec3.from_array(jnp.asarray([pt], jnp.float32))
@@ -64,7 +64,7 @@ class TestPerlin:
                 pytest.approx(none2, abs=2e-5)
 
     def test_gradient_matches_reference(self):
-        from raytracer795_tpu.utils.vec3 import Vec3
+        from raytracer795.utils.vec3 import Vec3
 
         p = Vec3.from_array(jnp.asarray([(0.3, 0.7, 1.9)], jnp.float32))
         g = np.asarray(
@@ -113,7 +113,7 @@ class TestExr:
 
 class TestPly:
     def test_ascii_quads_and_uv(self, scene_dir):
-        from raytracer795_tpu.scene.ply import read_ply
+        from raytracer795.scene.ply import read_ply
 
         ply = read_ply(scene_dir + "/octa.ply")
         assert ply.vertices.shape == (8, 3)
@@ -121,7 +121,7 @@ class TestPly:
         assert len(ply.faces) == 6 and all(len(f) == 4 for f in ply.faces)
 
     def test_binary_le(self, scene_dir):
-        from raytracer795_tpu.scene.ply import read_ply
+        from raytracer795.scene.ply import read_ply
 
         ply = read_ply(scene_dir + "/octa_bin.ply")
         assert ply.vertices.shape == (6, 3)
@@ -131,7 +131,7 @@ class TestPly:
 
 class TestImageIO:
     def test_ppm_roundtrip(self, tmp_path):
-        from raytracer795_tpu.utils.image_io import read_ppm, write_ppm
+        from raytracer795.utils.image_io import read_ppm, write_ppm
 
         img = np.arange(2 * 3 * 3, dtype=np.float32).reshape(2, 3, 3) * 10
         path = str(tmp_path / "t.ppm")
@@ -159,7 +159,7 @@ class TestLoader:
             <Center>1</Center><Radius>1</Radius></Sphere></Objects></Scene>"""
         p = tmp_path / "s.xml"
         p.write_text(xml)
-        from raytracer795_tpu.scene.loader import load_scene
+        from raytracer795.scene.loader import load_scene
 
         loaded = load_scene(str(p))
         s = loaded.scene
@@ -169,7 +169,7 @@ class TestLoader:
         assert s.groups[0].n_spheres == 1
 
     def test_camera_fovy_and_handedness(self, scene_dir):
-        from raytracer795_tpu.scene.loader import load_scene
+        from raytracer795.scene.loader import load_scene
 
         loaded = load_scene(scene_dir + "/lights.xml")
         cam = loaded.cameras[0]
@@ -181,7 +181,7 @@ class TestLoader:
     def test_texture_parser_state_carries_over(self, scene_dir):
         """The reference's TextureMap parser reuses state across maps
         (variables declared outside the loop, src/Parser.h:480-486)."""
-        from raytracer795_tpu.scene.loader import load_scene
+        from raytracer795.scene.loader import load_scene
 
         loaded = load_scene(scene_dir + "/textures.xml")
         texs = loaded.scene.textures
@@ -193,7 +193,7 @@ class TestLoader:
     def test_instance_matrix_composition(self, scene_dir):
         """resetTransform=false composes onto the base mesh's matrix
         (src/Helper.cpp:216-218)."""
-        from raytracer795_tpu.scene.loader import load_scene
+        from raytracer795.scene.loader import load_scene
 
         loaded = load_scene(scene_dir + "/instances.xml")
         names = [g.name for g in loaded.scene.groups]
